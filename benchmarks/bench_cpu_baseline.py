@@ -1,29 +1,34 @@
-"""CPU baseline for the >=50x-over-multithreaded-CPU claim (BASELINE.md).
+"""CPU comparison for the DTI+GQI fits (BASELINE.md).
 
-No Julia runtime exists on this machine, so the bound comes from two
-CPU measurements of the same DTI+GQI workload the TPU e2e runs
+No Julia runtime is available, so the comparison comes from two CPU
+measurements of the same DTI+GQI workload the GPU e2e runs
 (140x140x92, 198 directions, ~715k masked voxels):
 
 1. XLA-CPU batched kernels — the same jitted fits on the host CPU
-   (this VM has ONE core; the per-core rate is the scalable quantity,
-   since both XLA-CPU and the reference's `julia --threads auto` scale
-   ~linearly over the embarrassingly-parallel voxel axis).
+   (the per-core rate is the scalable quantity, since both XLA-CPU and
+   the reference's `julia --threads auto` scale ~linearly over the
+   embarrassingly-parallel voxel axis).
 2. The NumPy per-voxel oracle (tests/oracle.py) — a faithful stand-in
    for the reference's per-voxel Julia loops, timed on a sample and
    extrapolated.
 
-Prints one JSON line with voxel-fits/s for each; divide the TPU rate
-(BASELINE.md) by these to bound the claim.
+Prints one JSON line with voxel-fits/s for each; divide the GPU rate
+(PERF.md) by these for the speed-up.
 
   JAX_PLATFORMS=cpu python benchmarks/bench_cpu_baseline.py [--small]
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
+
+# run as a script from a checkout: the package sits beside this directory
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def main():
@@ -43,8 +48,10 @@ def main():
     shape = (48, 48, 32) if args.small else (140, 140, 92)
     ndir = 34 if args.small else 198
 
-    sys.path.insert(0, "/root/repo/tests") if "/root/repo/tests" not in \
-        sys.path else None
+    tests = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
     # synthetic scan with the e2e bench's geometry
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
     from bench import make_brain

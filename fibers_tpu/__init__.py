@@ -1,10 +1,10 @@
-"""fibers_tpu — a TPU-native diffusion-MRI pipeline in JAX.
+"""fibers_tpu — a diffusion-MRI pipeline in JAX.
 
 Built from scratch with the capabilities and public API surface of
 lincbrain/Fibers.jl: byte-faithful volume/tractogram I/O on the host, and
 all reconstruction math (DTI, GQI, DSI, RUMBA-SD, structure tensor) plus
-streamline tractography as batched, jitted XLA/Pallas computations over the
-brain mask, shardable across a TPU mesh.
+streamline tractography as batched, jitted XLA computations over the
+brain mask, shardable across a device mesh.
 
 Public API mirrors the reference's exported names (see SURVEY.md §2).
 """

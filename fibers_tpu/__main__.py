@@ -3,7 +3,7 @@
 The reference is library-only; this CLI wraps the same public surface
 (mri_read/info/disp, the model fits + their field-per-file writers, and
 the tractography engine) so a whole reconstruction can be driven from
-the shell on a TPU host — the deployment shape batch pipelines want.
+the shell on a GPU host — the deployment shape batch pipelines want.
 Option names/defaults mirror the library kwargs, which mirror the
 reference's (SURVEY.md §5.6).
 
@@ -216,6 +216,7 @@ def cmd_pipeline(args) -> int:
     import fibers_tpu as ft
 
     dwi, mask = _read_pair(args.dwi, args.mask)
+    seed = ft.mri_read(args.seed) if args.seed else None
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, "")
     mesh = _mesh(args.mesh)
@@ -230,11 +231,12 @@ def cmd_pipeline(args) -> int:
     try:
         # zero-fetch handoff: the GQI peak batch stays on device
         ov = ft.peaks_to_ovecs(gqi, device=True)
-        tract = ft.stream(ov, fa=dti.fa, mask=mask, f_thresh=0.0,
-                          nsub=args.nsub, mesh=mesh, trk_sink=out)
+        tract = ft.stream(ov, fa=dti.fa, mask=mask, seed=seed,
+                          f_thresh=0.0, nsub=args.nsub, mesh=mesh,
+                          trk_sink=out)
     except ValueError:
         ovec, f = ft.peaks_to_ovecs(gqi)
-        tract = ft.stream(ovec, f=f, fa=dti.fa, mask=mask,
+        tract = ft.stream(ovec, f=f, fa=dti.fa, mask=mask, seed=seed,
                           nsub=args.nsub, mesh=mesh, trk_sink=out)
     print(f"pipeline done: {args.outdir} ({tract.n_count} streamlines)")
     return 0
@@ -243,8 +245,7 @@ def cmd_pipeline(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m fibers_tpu",
-        description="TPU-native diffusion-MRI pipeline (Fibers.jl "
-                    "rebuild)")
+        description="diffusion-MRI pipeline in JAX (Fibers.jl rebuild)")
     sub = ap.add_subparsers(dest="command", required=True)
 
     def add(name, fn, help):
@@ -337,6 +338,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("mask")
     p.add_argument("outdir")
     p.add_argument("--sphere", default="362")
+    p.add_argument("--seed", help="seed-mask volume (default: the mask)")
     p.add_argument("--nsub", type=int, default=3)
     p.add_argument("--mesh", type=int, default=0)
     p.add_argument("--wire", default="auto")
@@ -350,4 +352,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

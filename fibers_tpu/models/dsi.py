@@ -4,7 +4,7 @@ Re-architected from the reference's per-voxel planned FFT + per-vertex
 interpolation loops (reference: src/dsi.jl:59-261) into batched XLA:
 signals scatter onto a [B, nfft^3] q-space grid, one batched 3D FFT with
 fftshift rolls, then the radial ODF integral collapses into a single
-[B, nfft^3] x [nfft^3, nvert] MXU GEMM whose weight matrix pre-bakes the
+[B, nfft^3] x [nfft^3, nvert] GEMM whose weight matrix pre-bakes the
 trilinear interpolation stencils and r^2 dr quadrature of all 21 radii.
 
 Wedeen et al. (2005), Magn Reson Med 54(6):1377-1386.
@@ -140,7 +140,7 @@ def _dsi_kernel(signals, iq_half, hann, iq_flat, wmat_aug, verts_first,
 
     `wmat_aug` is the half-spectrum radial weight matrix with the
     normalization-count column appended, so the ODF quadrature AND the
-    PDF sum come out of ONE MXU GEMM over the real half spectrum."""
+    PDF sum come out of ONE GEMM over the real half spectrum."""
     s = jnp.maximum(signals, 0.0)
     valid = s.max(axis=1) > 0
 

@@ -1,7 +1,7 @@
 """ADC and DTI tensor fitting as batched, jitted XLA computations.
 
 Re-architected from the reference's per-voxel threaded loops
-(reference: src/dti.jl:164-316) into the TPU-native shape: gather masked
+(reference: src/dti.jl:164-316) into the batched shape: gather masked
 voxels into a dense [N, nvol] batch, run one fused weighted-least-squares
 solve + closed-form 3x3 eigendecomposition over the whole batch, scatter
 back into volumes.
@@ -91,9 +91,9 @@ def _masked_wls(signals, A, ib0):
     # G = As^T diag(w) As  [N, p, p];  rhs = As^T (w .* logs)  [N, p].
     # G contracts as ONE dense [N, nvol] x [nvol, p^2] GEMM against the
     # precomputed per-volume outer products — the per-voxel einsum form
-    # lowers to N tiny 7x7 contractions that leave the MXU ~idle.
-    # HIGHEST precision: these solves need true f32 accumulation on the
-    # MXU (default bf16-input matmuls lose ~1e-2 relative here).
+    # lowers to N tiny 7x7 contractions.
+    # HIGHEST precision: these solves need true f32 products (reduced-
+    # precision matmul inputs lose ~1e-2 relative here).
     b_outer = (As[:, :, None] * As[:, None, :]).reshape(
         A.shape[0], nparam * nparam)
     g = jnp.dot(w, b_outer,
@@ -116,8 +116,8 @@ def _chol_solve_small(g, rhs):
     fully unrolled into [N]-vector ops.
 
     jnp.linalg.cholesky + cho_solve on [N, 7, 7] batches lowers to a
-    loop-heavy LAPACK-shaped program that costs ~40x the normal-equation
-    GEMM on TPU (measured 208 ms vs 36 ms at N=262k); the unrolled
+    loop-heavy LAPACK-shaped program that costs far more than the
+    normal-equation GEMM; the unrolled
     Cholesky + two substitutions are ~250 fusable elementwise ops on
     [N] vectors instead."""
     p = g.shape[-1]
@@ -167,7 +167,7 @@ def _adc_kernel(signals, A, ib0):
 
 
 # Column layout of the packed DTI result [N, 16]: one device->host fetch
-# instead of ten (small-transfer latency dominates on tunneled links)
+# instead of ten (per-transfer latency dominates small fetches)
 _DTI_COLS = dict(s0=(0, 1), eigval1=(1, 2), eigval2=(2, 3), eigval3=(3, 4),
                  eigvec1=(4, 7), eigvec2=(7, 10), eigvec3=(10, 13),
                  rd=(13, 14), md=(14, 15), fa=(15, 16))

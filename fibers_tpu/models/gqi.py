@@ -1,8 +1,8 @@
 """Generalized Q-space Imaging (GQI) reconstruction.
 
 Re-architected from the reference's per-voxel GEMV + scalar peak loop
-(reference: src/gqi.jl:109-171) into one [N, nvol] x [nvol, nvert] MXU GEMM
-over the masked voxel batch, a fused neighbor-gather peak NMS, and a
+(reference: src/gqi.jl:109-171) into one [N, nvol] x [nvol, nvert] GEMM
+over the masked voxel batch, a neighbor-gather peak NMS, and a
 `lax.top_k` instead of per-voxel sortperm.
 
 Yeh et al. (2010), IEEE TMI 29(9):1626-1635.
@@ -52,29 +52,6 @@ def gqi_design(bval: np.ndarray, bvec: np.ndarray, odf_dirs: ODF,
     bq = bvec.astype(np.float64) * (
         np.sqrt(bval.astype(np.float64) * 0.01506)[:, None] * (sigma / np.pi))
     return np.sinc(verts @ bq.T).astype(np.float32)
-
-
-@partial(jax.jit, static_argnames=("npeak",))
-def _gqi_kernel_pallas(signals, A, verts_first, P, okmask, npeak=NPEAK):
-    """Pallas-fused variant: GEMM + NMS + stats in one HBM pass, then
-    top-k/QA finishing on the fused outputs.  P/okmask come from
-    `neighbor_permutations` (host-side)."""
-    from ..ops.pallas.gqi_fused import gqi_fused
-
-    odf, peakmask, stats = gqi_fused(signals, A.T, P, okmask)
-    odfmin, odfmean, validf = stats[:, 0], stats[:, 1], stats[:, 2]
-    valid = validf > 0
-
-    vals, idx, pvalid = top_peaks(odf, peakmask > 0.5, npeak)
-    pvalid = pvalid & valid[:, None]
-
-    vecs = jnp.where(pvalid[..., None], verts_first[idx], 0.0)
-    qa = jnp.where(pvalid, vals - odfmin[:, None], 0.0)
-    odfmax = jnp.where(valid, odfmean, 0.0).max()
-    qa = qa / jnp.maximum(odfmax, 1e-30)
-
-    odf = jnp.where(valid[:, None], odf, 0.0)
-    return odf, vecs, qa, valid
 
 
 @partial(jax.jit, static_argnames=("npeak",))
@@ -132,7 +109,7 @@ def find_peaks(o, odf_dirs: ODF):
 
 
 def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
-            sigma: float = 1.25, impl: str = "auto", batch=None) -> GQI:
+            sigma: float = 1.25, batch=None) -> GQI:
     """GQI reconstruction of DWIs.  (reference: src/gqi.jl:109-171)
 
     Returns a `GQI` structure with half-sphere ODF amplitudes, the top-3
@@ -163,19 +140,10 @@ def gqi_rec(dwi: MRI, mask: MRI, odf_dirs: ODF = None,
             batch = prepare_batch(dwi, mask)
     idx, signals = batch.idx, batch.signals
 
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     with prof("gqi.kernel"):
-        if impl == "pallas":
-            from ..ops.pallas.gqi_fused import neighbor_permutations
-            P, okmask = neighbor_permutations(nbr, nbr_ok)
-            odf_b, vecs_b, qa_b, valid_b = _gqi_kernel_pallas(
-                signals, jnp.asarray(A), jnp.asarray(verts_first),
-                jnp.asarray(P), jnp.asarray(okmask))
-        else:
-            odf_b, vecs_b, qa_b, valid_b = _gqi_kernel(
-                signals, jnp.asarray(A), jnp.asarray(verts_first),
-                jnp.asarray(nbr), jnp.asarray(nbr_ok))
+        odf_b, vecs_b, qa_b, valid_b = _gqi_kernel(
+            signals, jnp.asarray(A), jnp.asarray(verts_first),
+            jnp.asarray(nbr), jnp.asarray(nbr_ok))
         from ..ops.transfer import sync
         sync(vecs_b)
 

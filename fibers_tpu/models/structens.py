@@ -37,7 +37,7 @@ _SCHARR_DERIV = np.array([-0.5, 0.0, 0.5], np.float32)
 def _band_matrix(n: int, kernel: np.ndarray) -> np.ndarray:
     """[n, n] banded correlation matrix with the "symmetric" (edge-
     inclusive reflect) boundary folded into the edge rows — so the 1-D
-    filtering becomes one MXU GEMM instead of a batch-1/channel-1
+    filtering becomes one GEMM instead of a batch-1/channel-1
     convolution (a shape XLA lowers to a ~100x-underutilized conv)."""
     r = (len(kernel) - 1) // 2
     b = np.zeros((n, n), np.float32)
@@ -53,8 +53,8 @@ def _band_matrix(n: int, kernel: np.ndarray) -> np.ndarray:
 def _conv1d_reflect(vol, kernel, axis):
     """Separable 1D correlation along `axis` with reflect ("symmetric")
     boundary, matching imfilter(..., "reflect"); contracted as a banded
-    [n, n] GEMM over the filtered axis (TPU-native: the MXU does in one
-    pass what a [1, 1, ...]-shaped conv spends thousands of cycles on)."""
+    [n, n] GEMM over the filtered axis (one dense matrix product in
+    place of a [1, 1, ...]-shaped convolution)."""
     n = vol.shape[axis]
     b = jnp.asarray(_band_matrix(n, np.asarray(kernel)))
     v = jnp.moveaxis(vol, axis, 0)
@@ -132,7 +132,7 @@ def st_recon(vol: np.ndarray, sigma: float, rho: float, lazy: bool = False,
     mesh's "data" axis along the first volume dimension that divides it;
     the banded-GEMM filters then run data-parallel, with GSPMD inserting
     the halo collectives for the axis being filtered (the volumes are
-    MBs, so these ride ICI for free).  Like every other fit, multi-chip
+    MBs, so these are cheap).  Like every other fit, multi-chip
     is a sharding annotation, not new code (SURVEY.md §7).
     """
     from ..core.lazy import LazyArray

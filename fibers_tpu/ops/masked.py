@@ -1,6 +1,6 @@
 """Mask gather/scatter between volumes and dense voxel batches.
 
-The TPU-native fit shape is: gather masked voxels into a dense
+The batched fit shape is: gather masked voxels into a dense
 [Nmask, nvol] batch on host, run jitted batched kernels on device, scatter
 results back into volumes.  Padding keeps jit shapes bucketed so recompiles
 are rare.

@@ -2,11 +2,11 @@
 
 The reference is single-process (its only parallelism is shared-memory
 threading, reference: src/dti.jl:258 etc.); fibers_tpu scales the same
-workloads across TPU pods: `initialize()` wires jax.distributed on each
-host, `global_mesh()` builds a pod-wide ("data", "model") mesh, and
+workloads across hosts: `initialize()` wires jax.distributed on each
+host, `global_mesh()` builds a global ("data", "model") mesh, and
 `shard_voxel_batch()` places a host-local voxel batch into a globally
-sharded array via `make_array_from_process_local_data` — collectives
-then ride ICI/DCN through XLA GSPMD (SURVEY.md §5.8: the only cross-shard
+sharded array via `make_array_from_process_local_data` — XLA GSPMD then
+inserts the collectives (SURVEY.md §5.8: the only cross-shard
 dependencies are a handful of global reductions).
 """
 
@@ -27,9 +27,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed for a multi-host run.
 
-    On TPU pods all arguments are discovered from the environment; pass
-    them explicitly elsewhere.  Safe to call once per process, before
-    any other JAX API.  Single-process runs may skip this entirely.
+    Where no cluster environment announces them, pass all three
+    explicitly (e.g. coordinator_address="localhost:<port>").  Safe to
+    call once per process, before any other JAX API.  Single-process runs may skip this entirely.
     """
     kwargs = {}
     if coordinator_address is not None:

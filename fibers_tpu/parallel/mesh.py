@@ -7,8 +7,9 @@ SURVEY.md §5.8).  Sharding is therefore a NamedSharding annotation on the
 batch axis plus optional model-axis sharding of the big GEMM operands; XLA
 GSPMD inserts the all-reduces.
 
-No NCCL/MPI-style backend exists or is needed: collectives ride ICI via
-XLA.  (The reference's only parallelism is shared-memory threading,
+The mesh is a plain 2-D ("data", "model") grid with no assumption about
+how the devices are wired; XLA lowers the collectives (NCCL on GPUs).
+(The reference's only parallelism is shared-memory threading,
 reference: src/dti.jl:258 etc.)
 """
 

@@ -51,8 +51,7 @@ def full_recon_step(signals, rumba_signal, fodf, sig2, lam_flat, tv_idx,
     the multi-chip dry run proves it compiles and executes under GSPMD
     (reference: src/rusd.jl:183-235, 282-296).  With `mesh`, the TV
     stencil reshards over the component axis and runs per-device inside
-    a shard_map — the path that lets the fused Pallas TV kernel (no
-    GSPMD partitioning rule of its own) serve pod-scale RUMBA.
+    a shard_map.
 
     Returns (fa, odf, peaks, qa, fodf', sig2', lam', points, npts) —
     enough outputs to keep every path live under jit.  Feed fodf'/sig2'/
@@ -85,7 +84,7 @@ def full_recon_step(signals, rumba_signal, fodf, sig2, lam_flat, tv_idx,
     tv_nxyz = int(np.prod(tv_shape3))
     gidx = _gather_index(tv_idx, fodf.shape[0], tv_nxyz)
     tv = _tv_term(fodf, gidx, tv_idx, lam_flat, tv_shape3, tv_nxyz,
-                  mesh=mesh, use_pallas=mesh is not None)
+                  mesh=mesh)
     fodf_new = jnp.maximum(fodf * rl * tv, 0.0)
     resid = ((rumba_signal ** 2 + dodf ** 2) / 2
              - (sig2 * dodf_sig) * iratio)

@@ -1,12 +1,10 @@
 """Reusable host scratch buffers for transient decode/pack stages.
 
-On this class of host (single-core VM, no transparent huge pages,
-measured 2026-08-18) first-touching freshly mmap'd pages runs at
-~0.1 GB/s — 20x slower than warm memory — and numpy returns >128 KB
-allocations to the OS on free, so every per-chunk `np.empty` in the
-streamline decode path pays the full fault cost again.  At the 1M-seed
-benchmark scale that was ~95% of the "decode+trk" stage (measured:
-98M-point fused decode 7.1 s cold vs 0.4 s warm into the same buffer).
+numpy returns >128 KB allocations to the OS on free, so every per-chunk
+`np.empty` in the streamline decode path pays its first-touch page
+faults again.  On a host without transparent huge pages that fault cost
+dominated the decode stage of the 1M-seed benchmark.  Whether the pool
+still pays on the GPU host is an open measurement (ROADMAP).
 
 `scratch(tag, n, dtype)` keeps ONE buffer per (tag, dtype), grown
 geometrically, and returns a length-n view — callers must treat the

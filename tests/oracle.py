@@ -1,6 +1,6 @@
 """Golden-parity oracle: direct NumPy per-voxel transliterations of the
 reference's algorithms, used as an independent test oracle for the batched
-TPU kernels.
+device kernels.
 
 Each function here follows the reference's Julia code line by line (0-based
 indices, numpy in place of BLAS), deliberately NOT sharing any code with
@@ -143,6 +143,17 @@ def dti_fit_voxel_oracle(dwi, bval, bvec):
     return dict(s0=s0, eigval1=l1, eigval2=l2, eigval3=l3,
                 eigvec1=evecs[:, 2], eigvec2=evecs[:, 1],
                 eigvec3=evecs[:, 0], rd=rd, md=md, fa=fa)
+
+
+def u16_wire_oracle(rows, vmax):
+    """The signal rows as the uint16 upload wire delivers them: one global
+    step vmax/65535 (vmax = the masked signal's maximum), each sample
+    clipped to [0, 65535] steps and rounded half up, then scaled back.
+    Samples below half a step arrive as 0."""
+    step = float(vmax) / 65535.0
+    q = np.floor(np.clip(np.asarray(rows, np.float64) / step, 0.0, 65535.0)
+                 + 0.5)
+    return q * step
 
 
 def adc_fit_voxel_oracle(dwi, bval):

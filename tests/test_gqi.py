@@ -118,39 +118,3 @@ class TestGQIRec:
             nb = nbr[i % 1][ok[i % 1]]  # dummy touch
             nbv = nbr[v][ok[v]]
             assert (o[i, v] > o[i, nbv]).all()
-
-
-class TestPallasParity:
-    def test_fused_kernel_matches_xla(self, rng):
-        """The Pallas fused GQI kernel (interpret mode on CPU) agrees with
-        the XLA path bit-for-bit on peaks and to float tolerance on ODF."""
-        import jax.numpy as jnp
-        from fibers_tpu.models.gqi import _gqi_kernel, _gqi_kernel_pallas
-        from fibers_tpu.ops.pallas.gqi_fused import (gqi_fused,
-                                                     neighbor_permutations)
-        from fibers_tpu.ops.peaks import build_neighbors
-        from fibers_tpu.core.odf import half_sphere
-        from fibers_tpu.models.gqi import gqi_design
-
-        odf_dirs = ft.sphere_362
-        nvert = odf_dirs.nvert_half
-        _, verts_first, faces0 = half_sphere(odf_dirs)
-        nbr, ok = build_neighbors(faces0, nvert)
-        P, okm = neighbor_permutations(nbr, ok)
-
-        n = 256
-        signals = np.abs(rng.standard_normal((n, 31))).astype(np.float32)
-        A = rng.standard_normal((nvert, 31)).astype(np.float32)
-
-        o_x = _gqi_kernel(jnp.asarray(signals), jnp.asarray(A),
-                          jnp.asarray(verts_first), jnp.asarray(nbr),
-                          jnp.asarray(ok))
-
-        odf, pm, stats = gqi_fused(jnp.asarray(signals), jnp.asarray(A.T),
-                                   jnp.asarray(P), jnp.asarray(okm),
-                                   interpret=True)
-        assert np.allclose(np.asarray(o_x[0]), np.asarray(odf), atol=1e-4)
-        from fibers_tpu.ops.peaks import peak_mask
-        pm_ref = peak_mask(jnp.asarray(np.asarray(o_x[0])),
-                           jnp.asarray(nbr), jnp.asarray(ok))
-        assert np.array_equal(np.asarray(pm) > 0.5, np.asarray(pm_ref))

@@ -1,4 +1,4 @@
-"""Golden-parity tests: batched TPU kernels vs independent per-voxel NumPy
+"""Golden-parity tests: batched device kernels vs independent per-voxel NumPy
 transliterations of the reference algorithms (tests/oracle.py).
 
 These are the oracle tests SURVEY.md §4 calls for: if either the batched
@@ -86,6 +86,29 @@ def test_dti_matches_pinv_oracle(rng):
     assert checked_ragged > 0, "no ragged voxels exercised"
 
 
+def test_u16_wire_matches_oracle_model(rng):
+    """prepare_batch's uint16 wire delivers the rows of the oracle's own
+    wire model: every sample within one step, nearly all exact (the
+    program scales in float32, so a rare half-step tie may round the
+    other way), and the sub-step samples arrive as 0 on both sides."""
+    dwi, mask = _synth_dwi(rng)
+    dwi.vol = np.maximum(dwi.vol, 0.0)
+    dwi.vol[1, 1, 1, 5] = 1e-4                  # below half a step
+    batch = ft.prepare_batch(dwi, mask, wire="u16")
+    got = np.asarray(batch.signals)[:batch.n].astype(np.float64)
+
+    flat = dwi.vol.reshape(-1, dwi.vol.shape[-1])
+    raw = flat[batch.idx]
+    want = oracle.u16_wire_oracle(raw, raw.max())
+    step = raw.max() / 65535.0
+    fp = 4 * np.finfo(np.float32).eps * raw.max()   # float32 decode
+    err = np.abs(got - want)
+    assert err.max() <= step + fp
+    assert (err <= fp).mean() > 0.99
+    lost = (raw > 0) & (want == 0)
+    assert lost.any() and (got[lost] == 0).all()
+
+
 def test_adc_matches_oracle(rng):
     dwi, mask = _synth_dwi(rng, shape=(4, 4, 3))
     adc, s0 = ft.adc_fit(dwi, mask)
@@ -105,7 +128,7 @@ def test_adc_matches_oracle(rng):
 def test_gqi_matches_oracle(rng):
     dwi, mask = _synth_dwi(rng, shape=(4, 5, 3))
     sph = ft.sphere_362
-    gqi = ft.gqi_rec(dwi, mask, sph, impl="xla")
+    gqi = ft.gqi_rec(dwi, mask, sph)
 
     odf_ref, peak_ref, qa_ref = oracle.gqi_oracle(
         dwi.vol, mask.vol, dwi.bval, dwi.bvec,

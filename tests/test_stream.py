@@ -768,7 +768,8 @@ class TestDevicePeaksHandoff:
 
     def test_dsi_handoff_matches_host_path(self):
         import sys
-        sys.path.insert(0, "/root/repo/benchmarks")
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "benchmarks"))
         from bench_models import dsi_qgrid
         import numpy as np
         rng = np.random.default_rng(0)

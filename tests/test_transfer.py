@@ -80,7 +80,7 @@ def test_prepare_batch_pipelined_matches_gather(rng, monkeypatch):
 class TestQuantizedBatchWire:
     """uint16 host->device wire for prepared batches (halves the
     dominant e2e upload; BASELINE.md) — forced on CPU so parity is
-    CI-checkable without the TPU."""
+    CI-checkable without an accelerator."""
 
     def test_u16_batch_error_bound(self):
         from phantom import make_phantom

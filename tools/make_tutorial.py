@@ -30,14 +30,14 @@ CELLS = [
     md("""
 # fibers_tpu tutorial
 
-A TPU-native diffusion-MRI pipeline in JAX, with the same user surface
+A diffusion-MRI pipeline in JAX, with the same user surface
 as [Fibers.jl](https://github.com/lincbrain/Fibers.jl).  This notebook
 mirrors the reference tutorial's flow end to end — volume I/O, ADC/DTI
 fits, GQI ODFs, RUMBA-SD with resume, and deterministic tractography —
 on a synthetic phantom with known ground truth, so every step is
 quantitatively checked and runs offline on CPU in a few minutes.
 
-On a TPU host the same code runs unchanged; the heavy stages (model
+On a GPU host the same code runs unchanged; the heavy stages (model
 fits, streamline propagation) execute as batched XLA programs.
 """),
     code("""
@@ -225,7 +225,7 @@ print("wrote", sorted(f for f in os.listdir(outdir) if "dti" in f)[:4], "...")
     md("""
 ## 5. GQI reconstruction
 
-Generalized q-sampling on the 642-vertex sphere: one MXU-friendly GEMM
+Generalized q-sampling on the 642-vertex sphere: one large GEMM
 over the voxel batch plus face-neighbor peak NMS.  In the crossing slab
 GQI should find two distinct peaks ~90 degrees apart.
 """),
@@ -427,7 +427,7 @@ RUMBA's peak vectors carry the fiber volume fraction in their magnitude;
 `ft.peaks_to_ovecs` splits them into unit directions plus `f` amplitude
 volumes, which `stream` thresholds at `f_thresh`.  With `device=True`
 the peak field never leaves the accelerator: `stream` builds its masked
-orientation array on device (the production path on TPU).
+orientation array on device (the production path on a GPU).
 """),
     code("""
 ovecs, fs = ft.peaks_to_ovecs(rumba60)
@@ -585,7 +585,7 @@ print(f"merged {tract.n_count} + {tract_r.n_count} (+1 manual) "
 Every fit takes a prepared `VoxelBatch`; preparing it on a
 `jax.sharding.Mesh` makes the same calls data-parallel across every
 device (here: the virtual CPU devices of this notebook kernel — on a
-TPU pod the same two lines shard over ICI).  RUMBA's TV regularizer
+multi-GPU host the same two lines shard over the GPUs).  RUMBA's TV regularizer
 reshards over fODF components internally so its stencils stay
 device-local.
 """),
@@ -652,9 +652,9 @@ assert np.allclose(bru.bvec[0], 0)       # prepended b=0 direction
   volumes and tractograms
 - `ft.rumba_rec(..., batch=prepare_batch(..., mesh=mesh))` and
   `ft.stream(..., mesh=mesh)` scale the heavy fits and tractography
-  across a TPU pod; see `fibers_tpu/parallel/` and docs/parity.md.
-- `benchmarks/` — e2e, per-model, MFU/roofline, and CPU-baseline
-  benchmarks with recorded results in BASELINE.md.
+  across several devices; see `fibers_tpu/parallel/` and docs/parity.md.
+- `benchmarks/` — e2e, per-model, kernel-rate and CPU-baseline
+  benchmarks; configurations in BASELINE.md, measurements in PERF.md.
 """),
 ]
 
